@@ -1,16 +1,17 @@
-"""accbpg_and_fw_tpu — TPU-native relatively-smooth convex optimization.
+"""accbpg_and_fw_tpu — relatively-smooth convex optimization in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of
+A JAX/XLA framework with the capabilities of
 ``DredderGun/accbpg_and_fw``: Bregman proximal-gradient methods (BPG, ABPG,
 ABPG-expo, ABPG-gain, ABDA, AIBM, AdaptFGM, UniversalGM, a primal-dual
 switching method), Frank-Wolfe methods with Bregman divergences and
 (L0,L1)-smoothness step rules, and specialized D-optimal-design solvers —
 with iteration loops compiled as ``lax.scan`` kernels and problems sharded
-over device meshes.
+over device meshes.  It runs on NVIDIA GPUs and on the CPU; the package
+name is kept for import compatibility.
 
 The public API mirrors the reference's (same names, signatures and return
-tuples; see /root/reference/accbpg/__init__.py) so user scripts port with an
-import change.
+tuples; see the reference's accbpg/__init__.py) so user scripts port with
+an import change.
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,12 @@
 """D-optimal design Frank-Wolfe solvers with O(mn) rank-1 iterations.
 
-TPU-native re-designs of /root/reference/accbpg/D_opt_alg.py: the classic
+JAX re-designs of the reference's accbpg/D_opt_alg.py: the classic
 Khachiyan Frank-Wolfe (``D_opt_FW``) and the Wolfe-Atwood away-step variant
 (``D_opt_FW_away``) for
 
     minimize  -log det(V diag(x) V^T)   s.t.  x in unit simplex.
 
-Design differences from the reference (same math, faster/stabler on TPU):
+Design differences from the reference (same math, compiled and stabler):
 
 * the whole iteration is a jitted scan step — argmax/argmin, the rank-1
   H/w updates, and the step-size arithmetic all stay on device (the
@@ -18,8 +18,7 @@ Design differences from the reference (same math, faster/stabler on TPU):
 * optional ``refresh_every``: re-factorize H, w and logdet from scratch at
   the first chunk boundary after every R iterations, canceling rank-1
   rounding drift (needed for float32 runs; the reference never refreshes);
-  the factorization is Cholesky-based so it (and the whole solver) also
-  runs in float64 on TPU, where LU has no f64 lowering;
+  the factorization is Cholesky-based (VXVT is SPD);
 * the away-branch logdet update uses w[j] (the reference uses w[i] at
   D_opt_alg.py:177 — a known bug that its F[k] hides by recomputing det(H)).
 
@@ -37,16 +36,14 @@ from jax import lax
 
 from .driver import run_driver
 
-# DS-engine u-update routing: below this V size the pure-VPU DS contract
-# wins (the packed int8 MXU path pays fixed digit-split + combine
-# dispatches); above it the MXU path is ~2x faster (flop-bound VPU
-# contract vs HBM-bound int8 matmul).  Measured crossover on v5e
-# (us/iter, contract vs packed): 0.3M 23/32, 1M 41/81, 2M 67/38,
-# 5M 140/73 — sharp flip at ~2M elements.  8 digit levels (48 bits both
-# sides): u error 8.4e-13 relative, matching the DS contract's 4e-13
-# (7 levels measured 3.8e-11, whose ~1.3e-9 slack floor at m=1000 kept
-# the n=2000 sweep's away endgame from certifying 1e-8); int32
-# accumulation stays exact for m <= 65k (m * 65^2 * levels < 2^31).
+# DS-engine u-update routing: from this V size on, the O(mn) contraction
+# u = (Hv)^T V runs as one packed int8 matmul with exact int32
+# accumulation instead of the elementwise DS contract.  The threshold has
+# not been measured on the GPU (PERF.md, open questions).  8 digit levels
+# (48 bits both sides): u error 8.4e-13 relative, matching the DS
+# contract's 4e-13 (7 levels measured 3.8e-11, whose ~1.3e-9 slack floor
+# at m=1000 kept the n=2000 sweep's away endgame from certifying 1e-8);
+# int32 accumulation stays exact for m <= 65k (m * 65^2 * levels < 2^31).
 _OZAKI_U_MIN_SIZE = 1_800_000
 _OZAKI_U_LEVELS = 8
 
@@ -55,9 +52,7 @@ def _dopt_factorize(V, x):
     """Fresh O(m^2 n + m^3) state: (H, w, logdet) for VXVT = V diag(x) V^T.
 
     Cholesky-based (VXVT is SPD): logdet = 2 sum log diag(R), H = R^-T R^-1,
-    and w = colnorms^2 of R^-1 V.  Unlike LU (slogdet/inv), Cholesky and
-    triangular solves have float64 TPU lowerings, so the solver runs in f64
-    on-device end to end.
+    and w = colnorms^2 of R^-1 V.
     """
     from jax.scipy.linalg import solve_triangular
 
@@ -92,7 +87,7 @@ class _DOptCfg:
                 and self.mixed == other.mixed)
 
     def __repr__(self):
-        # stable across processes: keys the driver's persistent AOT cache
+        # stable across processes: part of the checkpoint fingerprint
         return f"_DOptCfg(away={self.away}, mixed={self.mixed})"
 
 
@@ -100,10 +95,8 @@ def _dopt_u(cfg, prob, hv):
     if cfg.mixed:
         from ..ops.mixed_precision import ozaki_gemv
 
-        # Per-pair dot_generals (not ozaki_gemv_packed): the 21 independent
-        # small contractions overlap with the VPU-side H update in the same
-        # step, which measures ~25% faster end-to-end than the single big
-        # packed matmul despite the packed form's lower isolated cost.
+        # Per-pair dot_generals (not ozaki_gemv_packed): 21 independent
+        # small contractions that XLA may schedule beside the H update.
         return ozaki_gemv(hv, prob["V_digits"], prob["sV"], levels_a=7,
                           max_diag=6).astype(prob["V"].dtype)
     return hv @ prob["V"]
@@ -125,10 +118,11 @@ def _dopt_step(cfg, prob, c, k):
         u = _dopt_u(cfg, prob, HVi)
         # Force u_i == w_i: the exact line search sets the new w_i to exactly
         # m only when the recomputed v_i^T H v_i agrees with the incrementally
-        # tracked w_i.  At float64 CPU precision they agree to ~1e-15 (no-op);
-        # on TPU the ~1e-12 matmul discrepancy otherwise leaves a residual
-        # slack of order m*delta that sustains a permanent ~1e-6 limit cycle
-        # (observed: SN frozen at 2.7e-6 for 40k iterations at m=1000).
+        # tracked w_i.  In exact float64 they agree to ~1e-15 (no-op); an
+        # inexact contraction (the int8-Ozaki "mixed" u, ~1e-12) otherwise
+        # leaves a residual slack of order m*delta that sustains a permanent
+        # ~1e-6 limit cycle (observed: SN frozen at 2.7e-6 for 40k
+        # iterations at m=1000).
         u = u.at[i].set(wi)
         w_new = (w - c_ * u * u) / (1.0 - t)
         x_new = (x * (1.0 - t)).at[i].add(t)
@@ -187,12 +181,12 @@ def _dopt_step(cfg, prob, c, k):
 def _dopt_step_ds(cfg, prob, c, k):
     """Unified FW(-away) step with the WHOLE state in double-single f32
     (ops/double_single.py): ~f64-accurate trajectories (certifies slack
-    1e-8) from pure f32 XLA ops — no f64 emulation (~25x matmul tax), no
-    jax_enable_x64 requirement, vmappable for batched sweeps.
+    1e-8) from pure f32 XLA ops — no jax_enable_x64 requirement, vmappable
+    for batched sweeps.
 
-    Same math as ``_dopt_step`` expressed through the signed-tau unification
-    (ops/pallas_dopt.py): toward tau=+t, away tau=-t, then a single shared
-    update path reproduces both branches of D_opt_alg.py:162-179.
+    Same math as ``_dopt_step`` expressed through a signed-tau unification:
+    toward tau=+t, away tau=-t, then a single shared update path
+    reproduces both branches of D_opt_alg.py:162-179.
     """
     from ..ops import double_single as dsa
 
@@ -276,17 +270,12 @@ def _dopt_step_ds(cfg, prob, c, k):
     Vi = (lax.dynamic_index_in_dim(Vds[0], v, axis=1, keepdims=False),
           lax.dynamic_index_in_dim(Vds[1], v, axis=1, keepdims=False))
     # DS contractions via ops/double_single.contract (f32 cross terms +
-    # sloppy partial sums).  Measured ~7% faster than mul + sum_along at
-    # m=1000, n=5000 on TPU — XLA already sinks the broadcast-side splits,
-    # so the hoisting mostly matters for the Pallas path — at the same
-    # ~1e-13 accuracy
+    # sloppy partial sums), ~1e-13 accurate
     HVi = dsa.contract(Vi, H, 1)
     if "V_packed" in prob:
-        # Big-n fast path: the O(mn) u = (Hv)^T V contraction through ONE
-        # packed int8 MXU matmul with exact int32 accumulation + DS combine
-        # (ops/mixed_precision.ozaki_gemv_packed_ds).  The pure-VPU DS
-        # contract is flop-bound at ~2x the HBM floor (144 vs 68 us at
-        # 1000x5000); the MXU path measures 70 us at ~1e-12 relative.
+        # Big-n path: the O(mn) u = (Hv)^T V contraction through ONE
+        # packed int8 matmul with exact int32 accumulation + DS combine
+        # (ops/mixed_precision.ozaki_gemv_packed_ds), ~1e-12 relative.
         from ..ops import mixed_precision as mp
 
         levels = prob["V_packed"].shape[-1] // n
@@ -298,10 +287,6 @@ def _dopt_step_ds(cfg, prob, c, k):
     u = (u[0].at[v].set(wv[0]), u[1].at[v].set(wv[1]))
 
     w_new = dsa.mul(dsa.sub(w, dsa.mul(c_, dsa.sq(u))), r_tau)
-    # Keep the factored (H - c*outer)*r_tau form: the distributive
-    # H*r_tau - (c*r_tau)(Hv)(Hv)^T variant with hoisted-split outer was
-    # MEASURED SLOWER on TPU (42 vs 35 us/iter at m=1000 — XLA fuses the
-    # factored chain better and already sinks the broadcast splits)
     outer = dsa.mul((HVi[0][:, None], HVi[1][:, None]),
                     (HVi[0][None, :], HVi[1][None, :]))
     H_new = dsa.mul(dsa.sub(H, dsa.mul(c_, outer)), r_tau)
@@ -367,13 +352,19 @@ def _dopt_factorize_ds(V64, x64):
     return H, w, logdet
 
 
+_U_MODES = ("auto", "exact", "mixed", "ds")
+
+
+def _check_u_mode(u_mode):
+    if u_mode not in _U_MODES:
+        raise ValueError(f"unknown u_mode {u_mode!r}; expected one of "
+                         f"{_U_MODES}")
+
+
 def _dopt_problem(V, eps, u_mode):
-    """Resolve u_mode and build the traced problem pytree + static cfg."""
-    dt = V.dtype
-    if u_mode == "auto":
-        u_mode = ("mixed" if dt == jnp.float64
-                  and jax.default_backend() == "tpu" else "exact")
-    prob = dict(V=V, eps=jnp.asarray(eps, dt))
+    """Build the traced problem pytree + static cfg ("auto" is "exact")."""
+    _check_u_mode(u_mode)
+    prob = dict(V=V, eps=jnp.asarray(eps, V.dtype))
     if u_mode == "mixed":
         from ..ops.mixed_precision import digit_split_matrix
 
@@ -388,13 +379,10 @@ def _make_dopt_step(V, eps, *, away, u_mode="auto"):
     ``u_mode`` selects how the O(mn) rank-1 w-update contraction
     u = (H v)^T V is computed:
 
-    * "exact": native dtype dot (bit-matches the reference trajectory on
-      CPU; ~25x slower than f32 on TPU for f64 inputs, which have no
-      hardware matmul path);
+    * "exact" (and "auto"): native dtype dot (bit-matches the reference
+      trajectory on CPU);
     * "mixed": Ozaki-style int8 digit contraction with exact int32
-      accumulation (ops/mixed_precision.py) — ~3e-12 relative error at
-      ~1/9 the TPU-f64 cost;
-    * "auto": "mixed" exactly when running f64 on a TPU backend.
+      accumulation (ops/mixed_precision.py) — ~3e-12 relative error.
     """
     prob, cfg = _dopt_problem(V, eps, u_mode)
     cfg = _DOptCfg(away=away, mixed=cfg.mixed)
@@ -442,7 +430,7 @@ def _run_dopt_ds(V, x0, eps, maxitrs, verbose, verbskip, chunk, away,
                 eps=jnp.asarray(eps, jnp.float32),
                 inv_m_hi=jnp.asarray(imh), inv_m_lo=jnp.asarray(iml))
     if V64.size >= _OZAKI_U_MIN_SIZE:
-        # packed int8 digit planes of V for the MXU u-update fast path
+        # packed int8 digit planes of V for the big-n u-update path
         # (see _dopt_step_ds); split on HOST so no x64 is required
         from ..ops import mixed_precision as mp
 
@@ -491,75 +479,9 @@ def _run_dopt_ds(V, x0, eps, maxitrs, verbose, verbskip, chunk, away,
     return x_out, F_out, hist["SP"], hist["SN"], T
 
 
-def _resolve_auto_u_mode(V, u_mode):
-    """Route ``u_mode="auto"`` to the lazy-H fused Pallas kernel for LARGE
-    f64 problems on a TPU backend (round 4): the whole iteration runs in
-    one kernel with the packed int8 design planes VMEM-resident and the
-    rank-1 H updates deferred into a per-block factored buffer —
-    ~1.1 us/iteration at 1000x5000 vs 146 us for the DS scan (which
-    streams the 35 MB packed planes from HBM every iteration) and ~550 us
-    for the mixed oracle.  State trajectories match the DS engine to
-    ~1e-14 (SP histories bit-identical over 4096 measured iterations).
-    Below the packed threshold "auto" keeps its round-1 meaning (mixed iff
-    f64-on-TPU, resolved in ``_dopt_problem``; tiny problems route to host
-    CPU via the driver's AUTO_CPU fallback, which needs the f64
-    pytrees)."""
-    if u_mode != "auto":
-        return u_mode
-    dt = getattr(V, "dtype", None)
-    if (dt is not None and str(dt) == "float64"
-            and getattr(V, "size", 0) >= _OZAKI_U_MIN_SIZE
-            and jax.default_backend() == "tpu"):
-        m, n = V.shape
-        MP = max(8, 1 << (max(m, 8) - 1).bit_length())
-        NP = -(-n // 128) * 128
-        # the lazy kernel keeps the packed design + H0 planes VMEM-resident
-        # (8 int8 digit levels each); past the ~70 MB working budget of the
-        # 110 MB compiler grant the kernel cannot compile — stream from HBM
-        # via the DS scan instead (1000x20000 lands here)
-        vmem_bytes = 8 * MP * NP + 8 * MP * MP
-        if vmem_bytes <= 70 * 1024 * 1024:
-            # VMEM-resident packed design: the lazy kernel's domain at any
-            # m above the packed threshold — measured 1.82 s vs the DS
-            # scan's 2.99 s at 1000x5000 (bench) and 1.45 s vs 2.93 s per
-            # 4000 iters at 30x100000 (the dense pallas kernel VMEM-OOMs
-            # there: its butterfly temporaries scale with m*n).  Past the
-            # budget (1000x20000: 173 MB) the DS scan streams from HBM
-            # (measured 114.8x).
-            return "pallas_lazy"
-        return "ds"
-    return u_mode
-
-
 def _run_dopt(V, x0, eps, maxitrs, verbose, verbskip, chunk, away,
               refresh_every, header, checkpoint=None, u_mode="auto"):
-    u_mode = _resolve_auto_u_mode(V, u_mode)
-    if u_mode == "pallas":
-        # whole-iteration fused kernel (ops/pallas_dopt.py): double-single
-        # precision, ~10.7 us/iteration independent of n; single-chip,
-        # V must fit in VMEM (m*n up to ~1.5M entries).  Checkpoints
-        # snapshot the iterate at launch-block boundaries; resume equals a
-        # refresh at the interruption point (refresh-level trajectory
-        # agreement, not bitwise — see dopt_fw_pallas).
-        from ..ops.pallas_dopt import dopt_fw_pallas
-
-        interpret = jax.default_backend() != "tpu"
-        return dopt_fw_pallas(V, x0, eps, maxitrs, away=away, verbose=verbose,
-                              verbskip=verbskip, chunk=chunk,
-                              refresh_every=refresh_every, interpret=interpret,
-                              checkpoint=checkpoint)
-    if u_mode == "pallas_lazy":
-        # large-m whole-iteration fused kernel with the lazy-H factored
-        # carry and VMEM-resident int8 design planes (~1.1 us/iteration at
-        # 1000x5000; ops/pallas_dopt_lazy.py).  Checkpoint semantics as
-        # dopt_fw_pallas (block snapshots, refresh-level resume).
-        from ..ops.pallas_dopt_lazy import dopt_fw_pallas_lazy
-
-        interpret = jax.default_backend() != "tpu"
-        return dopt_fw_pallas_lazy(V, x0, eps, maxitrs, away=away,
-                                   verbose=verbose, verbskip=verbskip,
-                                   chunk=chunk, refresh_every=refresh_every,
-                                   interpret=interpret, checkpoint=checkpoint)
+    _check_u_mode(u_mode)
     if u_mode == "ds":
         return _run_dopt_ds(V, x0, eps, maxitrs, verbose, verbskip, chunk,
                             away, refresh_every, header,
@@ -576,9 +498,9 @@ def _run_dopt(V, x0, eps, maxitrs, verbose, verbskip, chunk, away,
     between = None
     if refresh_every:
         # Refactorize at chunk boundaries (instead of a lax.cond inside the
-        # scan, which forces both-branch buffer materialization per
-        # iteration on TPU).  One extra O(m^2 n) dispatch per crossed
-        # refresh boundary, zero per-iteration cost.
+        # scan, whose large carry would thread through both branches every
+        # iteration).  One extra O(m^2 n) dispatch per crossed refresh
+        # boundary, zero per-iteration cost.
         @jax.jit
         def _refresh(c):
             Hn, wn, ldn = _dopt_factorize(V, c["x"])
@@ -609,16 +531,10 @@ def D_opt_FW(V, x0, eps, maxitrs, verbose=True, verbskip=1, chunk=None,
     Sherman-Morrison updates of H = (V diag(x) V^T)^{-1} and w = -gradient
     (reference: D_opt_alg.py:9-88).  Returns ``(x, F, SP, SN, T)``.
 
-    ``u_mode`` selects the engine/precision: "exact" (native dtype),
-    "mixed" (int8-Ozaki w-updates for f64 inputs), "auto" (f64 on TPU:
-    the lazy-H fused kernel above ~2M-element designs, mixed below;
-    tiny all-f64 problems fall back to host CPU — see
-    ``_resolve_auto_u_mode``), "ds" (double-single scan: f64-grade
-    trajectories from pure f32), "pallas" (whole-iteration fused kernel
-    for small/medium VMEM-resident problems, ~10.7 us/iter), or
-    "pallas_lazy" (large-m fused kernel with deferred rank-1 H updates
-    and VMEM-resident int8 design planes, ~1.1 us/iter at 1000x5000 —
-    ops/pallas_dopt_lazy.py).
+    ``u_mode`` selects the engine/precision: "exact" (native dtype; what
+    "auto" runs), "mixed" (int8-Ozaki w-updates for f64 inputs) or "ds"
+    (double-single scan: f64-grade trajectories from pure f32).  Any other
+    value raises ``ValueError``.
     """
     header = ("\nSolving D-opt design problem using Frank-Wolfe method\n"
               "     k      F(x)     pos_slack   neg_slack    time")

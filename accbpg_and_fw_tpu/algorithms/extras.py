@@ -1,7 +1,7 @@
 """Inexact-oracle and constrained methods: AIBM, AdaptFGM, UniversalGM,
 PrimalDualSwitchingGradientMethod.
 
-TPU-native re-designs of /root/reference/accbpg/algorithms.py:593-968.  The
+JAX re-designs of the reference's accbpg/algorithms.py:593-968.  The
 inexact-oracle noise (reference: uniform draws from the global numpy RNG via
 ``get_random_float``, utils.py:278-285) is PRNG-keyed: each driver takes a
 ``seed`` kwarg and folds a fresh subkey into every iteration, so noisy runs
@@ -406,8 +406,7 @@ def _pd_step(cfg, prob, c, k):
 
     # BOTH branches run and a per-leaf where selects: a lax.cond threading
     # the x-sized carry materializes both branch results through the
-    # conditional every scan iteration (~60x on TPU for large carries, see
-    # CLAUDE.md); the unproductive branch is one cheap gradient step, so
+    # conditional every scan iteration; the unproductive branch is one cheap gradient step, so
     # computing it unconditionally costs less than the cond's double
     # materialization
     c_prod, Lk_prod = prod_branch(c)

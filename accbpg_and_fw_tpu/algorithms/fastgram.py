@@ -6,8 +6,8 @@ points can:
 
 * combine carried m x m Grams instead of paying the O(m^2 n) contraction;
 * replace the per-evaluation m x m factorization with a warm-started
-  Newton-Schulz inverse (matmul-only — no sequential emulated-f64
-  Cholesky on TPU);
+  Newton-Schulz inverse (matmul-only — no sequential Cholesky in the
+  hot loop);
 * advance log-determinants through the exact identity
   ``logdet G' = logdet G + logdet(M G') - logdet(M G)`` for any M,
   evaluated by an 8-term trace series when M approximates an inverse well
@@ -50,10 +50,11 @@ def schulz(M, G, steps=4):
     error ||I - G M|| SQUARES per step, so 4 steps take a 5e-2 warm start
     or a 1e-3 f32-Cholesky seed to below 1e-12).
 
-    Precision.HIGHEST is load-bearing for f32 operands: TPU matmuls
-    default to bf16 MXU passes (~1e-3 relative), which caps the Schulz
-    fixed point at ~1e-2 — measured: the f32 polish DEGRADED a 3.5e-7
-    seed to 1e-2 before this pin (f64 operands are unaffected)."""
+    Precision.HIGHEST is load-bearing for f32 operands: at DEFAULT
+    precision an accelerator may run f32 matmuls in reduced-precision
+    passes (TF32 on the GPU, ~1e-3 relative), which caps the Schulz fixed
+    point at ~1e-2 — measured: the f32 polish DEGRADED a 3.5e-7 seed to
+    1e-2 before this pin (f64 operands are unaffected)."""
     hi = jax.lax.Precision.HIGHEST
     for _ in range(steps):
         M = 2.0 * M - jnp.matmul(
@@ -132,7 +133,7 @@ def anchored_logdet(f, ld_anchor, sign, M, G_series, G_target):
 
 # ---------------------------------------------------------------------------
 # Double-single (two-f32) engine: the same linear-Gram machinery at f64
-# GRADE from pure f32/int8 TPU ops — no jax_enable_x64, no emulated f64.
+# GRADE from pure f32/int8 ops — no jax_enable_x64, no f64 anywhere.
 # Oracles opt in with the DS protocol ``gram_ds`` / ``logdet_full_ds`` /
 # ``inv_seed32`` / ``grad_from_inv_ds`` (DOptimalObjDS).  Every multi-word
 # value is a DS ``(hi, lo)`` f32 pair (ops/double_single.py).
@@ -225,8 +226,8 @@ def series_logdet_ds(E):
     s = ds.sum_along(sh, axis=-1, sloppy=True)
     t = [(s[0][..., i], s[1][..., i]) for i in range(4)]
 
-    # j >= 5: f32 hi-plane matmuls (HIGHEST: TPU f32 matmuls default to
-    # bf16 passes, see `schulz`)
+    # j >= 5: f32 hi-plane matmuls (HIGHEST: f32 matmuls may default to
+    # reduced-precision passes, see `schulz`)
     hi = jax.lax.Precision.HIGHEST
     Eh = E[0] + E[1]
     E2h = E2[0] + E2[1]
@@ -345,10 +346,9 @@ def init_state(f, x0):
     Jitted (module-level cache): called eagerly, the ``lax.cond`` inside
     the mixed oracle's factorization closes over CONCRETE arrays, so every
     call builds a fresh jaxpr and compiles a fresh ``jit(cond)``
-    executable.  On TPU each of those is a remote compile (seconds) —
-    measured 297 s for a 9000-iteration BPG fast_gram solve whose refresh
-    paid 2 such compiles per chunk.  Under jit the cond compiles once per
-    (oracle-structure, shape) and is cached for the whole process.
+    executable — 2 compiles per chunk through the refresh hook.  Under jit
+    the cond compiles once per (oracle-structure, shape) and is cached for
+    the whole process.
     """
     G0 = f.gram(x0)
     return dict(G0=G0, M0=schulz(f.inv_seed(G0), G0),

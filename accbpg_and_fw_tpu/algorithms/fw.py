@@ -1,6 +1,6 @@
 """Frank-Wolfe family: Bregman-divergence steps and (L0,L1)-smooth step rules.
 
-TPU-native re-designs of /root/reference/accbpg/algorithms_fw.py.  Each
+JAX re-designs of the reference's accbpg/algorithms_fw.py.  Each
 driver is a jitted scan step (see ``driver.py``); the L/L0/L1 backtracking
 line searches are bounded ``lax.while_loop``s; the LMO is a jittable closure
 ``g -> s`` from ``ops/lmo.py`` whose arg-reductions shard over a mesh.

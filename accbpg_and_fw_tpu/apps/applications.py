@@ -1,6 +1,6 @@
 """Problem factories (L3): each returns ``(f, h, L, x0, ...)`` tuples.
 
-TPU-native equivalents of /root/reference/accbpg/applications.py.  Problem
+JAX equivalents of the reference's accbpg/applications.py.  Problem
 data is generated with the reference's numpy-RNG call sequences under the
 same ``randseed`` semantics (so seeded instances are bit-identical to the
 reference's and its stored notebook traces apply), then moved to device as
@@ -68,8 +68,8 @@ def D_opt_design(m, n, randseed=-1, oracle=None):
     Seeded instances reproduce the reference's exactly.
 
     ``oracle="mixed"`` returns a ``DOptimalObjMixed`` f-oracle (f64-grade
-    answers via exact int8 Ozaki GEMMs + refined f32 Cholesky — the fast
-    f64-parity path for the BPG/ABPG family on TPU; needs x64 enabled);
+    answers via exact int8 Ozaki GEMMs + refined f32 Cholesky; needs x64
+    enabled);
     default is the plain ``DOptimalObj`` in the ambient dtype."""
     if randseed > 0:
         np.random.seed(randseed)
@@ -135,15 +135,10 @@ def _regression_oracle(kind, A, b, oracle, levels=None):
     """Build the f-oracle for a Poisson/KL regression factory.
 
     ``oracle``: None (plain, ambient dtype), "mixed", "ds", or "auto".
-    "auto" (round 5, VERDICT r4 #6) picks the best measured engine for
-    the backend: on TPU with x64 enabled and a large design (>= ~2M
-    entries), the DS-elementwise oracle with 5 digit levels — the KL
-    frontier's best recorded row (DS+levels5 1.551 s = 89.7x vs mixed
-    2.16 s at 20000x10000, BASELINE.md round 4); otherwise the plain
-    oracle (small problems and CPU f64 need no engine).  ``levels``
-    overrides the digit-plane count for the mixed/ds engines (so an
-    explicit oracle="ds", levels=5 reproduces exactly what "auto"
-    picks; the class default 7 is the ~1e-13 oracle grade)."""
+    "auto" is the plain oracle: with native f64 no engine is needed (the
+    "mixed"/"ds" engines have not been measured on the GPU, PERF.md).
+    ``levels`` overrides the digit-plane count for the mixed/ds engines
+    (the class default 7 is the ~1e-13 oracle grade)."""
     from ..ops.f_oracles import (KLdivRegression, KLdivRegressionDS,
                                  KLdivRegressionMixed, PoissonRegression,
                                  PoissonRegressionDS,
@@ -155,12 +150,7 @@ def _regression_oracle(kind, A, b, oracle, levels=None):
         "kl": (KLdivRegression, KLdivRegressionMixed, KLdivRegressionDS),
     }[kind]
     if oracle == "auto":
-        big = A.size >= 2_000_000
-        x64 = bool(jax.config.jax_enable_x64)
-        oracle = ("ds" if (big and x64
-                           and jax.default_backend() == "tpu") else None)
-        if levels is None:
-            levels = 5  # the best recorded frontier row
+        oracle = None
     kw = {} if levels is None else {"levels": levels}
     if oracle == "mixed":
         return mixed.from_data(A, b, **kw)
@@ -343,17 +333,13 @@ def FrobeniusSymLossResMeasEx(M, r, noise=0.0, oracle=None):
     ``oracle="mixed"`` returns a ``FrobeniusSymLossMixed`` f-oracle
     (f64-grade M@X / X^T X via exact int8 Ozaki products against
     pre-split digit planes of M; needs x64; incompatible with ``noise``).
-    ``oracle="ds"`` (round 5) pairs ``FrobeniusSymLossDS`` with the
-    DS-Cardano prox kernel — the f64-grade SymNMF fast path (no emulated
-    f64 in the hot loop).  ``oracle="auto"`` picks "ds" on a TPU backend
-    with x64 enabled and a large M (n >= ~1024), plain otherwise
-    (VERDICT r4 #6)."""
+    ``oracle="ds"`` pairs ``FrobeniusSymLossDS`` with the DS-Cardano prox
+    kernel — f64-grade SymNMF from pure f32 arithmetic.  ``oracle="auto"``
+    is the plain oracle."""
     M = np.asarray(M)
     X0 = np.random.rand(M.shape[0], r)
     if oracle == "auto":
-        oracle = ("ds" if (M.shape[0] >= 1024 and not noise
-                           and bool(jax.config.jax_enable_x64)
-                           and jax.default_backend() == "tpu") else None)
+        oracle = None
     h_cls = SumOf2nd4thPowersPositiveOrthant
     if oracle in ("mixed", "ds"):
         if noise:

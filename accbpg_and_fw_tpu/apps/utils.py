@@ -1,6 +1,6 @@
 """Data loading, sampling and metric utilities.
 
-TPU-native equivalents of /root/reference/accbpg/utils.py.  Problem-instance
+JAX equivalents of the reference's accbpg/utils.py.  Problem-instance
 generation keeps the reference's numpy-RNG call sequences where seeded
 reproducibility against its stored traces matters (``randseed`` kwargs), and
 offers PRNG-keyed JAX variants for on-device generation.

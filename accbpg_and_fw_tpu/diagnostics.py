@@ -11,7 +11,9 @@ inside jit; this module provides the jit-compatible equivalents:
   domain (the reference's assert semantics, usable at chunk boundaries);
 * ``profile_trace(logdir)``: wraps ``jax.profiler.trace`` so a solver run
   can be captured for TensorBoard/Perfetto;
-* ``iteration_rate(T)``: iterations/second summary from a driver's T array.
+* ``iteration_rate(T)``: iterations/second summary from a driver's T array;
+* ``dopt_certificate(V, x)``: host float64 optimality certificate of a
+  D-optimal design point, independent of every solver in the package.
 """
 
 from __future__ import annotations
@@ -73,6 +75,27 @@ def iteration_rate(T):
     if len(T) < 2 or T[-1] <= 0:
         return float("nan"), float(T[-1] if len(T) else 0.0)
     return float((len(T) - 1) / T[-1]), float(T[-1])
+
+
+def dopt_certificate(V, x):
+    """Fresh float64 certificate of ``x`` for min -logdet(V diag(x) V^T)
+    over the unit simplex, computed with NumPy on the host.
+
+    ``x`` is first normalised to the simplex.  Returns a dict with
+    ``F = -logdet(V diag(x) V^T)``, ``w_j = v_j^T (V diag(x) V^T)^-1 v_j``,
+    the positive slack ``max_j w_j / m - 1`` and the duality-gap bound
+    ``m log(max_j w_j / m)`` on ``F - F*``, valid at any simplex point."""
+    V = np.asarray(V, np.float64)
+    x = np.asarray(x, np.float64)
+    x = x / x.sum()
+    m = V.shape[0]
+    R = np.linalg.cholesky((V * x) @ V.T)
+    logdet = 2.0 * np.sum(np.log(np.diag(R)))
+    W = np.linalg.solve(R, V)
+    w = np.einsum("ij,ij->j", W, W)
+    wmax = float(w.max())
+    return dict(F=float(-logdet), w=w, slack=wmax / m - 1.0,
+                gap_bound=m * float(np.log(wmax / m)))
 
 
 def divergence_is_valid(h, x, y, atol=0.0):

@@ -1,9 +1,9 @@
 """Oracle interfaces: relatively-smooth f-oracles and Legendre h-oracles.
 
 The reference defines these as abstract Python classes with a ``flag``-based
-``func_grad`` protocol (/root/reference/accbpg/functions.py:10-24 for
+``func_grad`` protocol (the reference's accbpg/functions.py:10-24 for
 ``RSmoothFunction`` and :199-235 for ``LegendreFunction``).  Here they are
-redesigned TPU-first:
+redesigned for compilation:
 
 * every concrete oracle is a frozen pytree dataclass (see ``struct.py``) so
   it flows through ``jit`` / ``lax.scan`` / meshes without re-tracing;

@@ -1,8 +1,7 @@
 """Double-single (two-float32) arithmetic: ~f64 accuracy from f32 hardware.
 
-TPU compute units have no float64 path — XLA emulates f64 in software
-(~25x slower for matmuls, CLAUDE.md) and Pallas/Mosaic kernels cannot use
-f64 at all.  This module represents a value as an UNEVALUATED SUM of two
+Some accelerators have no float64 path, and on others f64 runs at a fraction
+of the f32 rate.  This module represents a value as an UNEVALUATED SUM of two
 float32s ``(hi, lo)`` with ``|lo| <= ulp(hi)/2``, giving ~49 bits of
 significand (~1e-14 relative) from pure f32 adds/multiplies, via the
 classic error-free transformations (Dekker 1971, Knuth TAOCP v2 §4.2.2,
@@ -13,20 +12,21 @@ and the double-double arithmetic of Hida/Li/Bailey's QD library):
   exact rounding error of a f32 multiplication without FMA (17 flops);
 * ``add/mul/div`` etc. compose these into renormalized (hi, lo) results.
 
-All functions are elementwise over arbitrary jnp array shapes and work
-both in XLA-land and inside Pallas kernel bodies (VPU only — no MXU, no
-transcendentals).  A DS number is a plain ``(hi, lo)`` tuple of same-shape
-f32 arrays.
+All functions are elementwise over arbitrary jnp array shapes (adds and
+multiplies only — no matmuls, no transcendentals).  A DS number is a plain
+``(hi, lo)`` tuple of same-shape f32 arrays.
 
 Correctness requires IEEE-754 round-to-nearest f32 add/mul and that the
 compiler does not algebraically rewrite the error terms.  XLA preserves
 float semantics (it may fuse ``a*b - p`` into an FMA, which makes the
-Dekker error MORE exact, never less).  Verified against f64 on CPU and on
-the TPU VPU by tests/test_double_single.py.
+Dekker error MORE exact, never less).  Verified against f64 on the CPU by
+tests/test_double_single.py, and in true f32 on an H100 by the engines
+phase of chip_smoke.py (DS FW-away certifies slack 1e-8 and matches the
+f64 engine's iterate to 5e-11).
 
 No reference counterpart: the reference is f64 numpy throughout
-(/root/reference/accbpg/D_opt_alg.py operates on float64 arrays); this
-module is what lets the TPU build match that accuracy at f32 speed.
+(accbpg/D_opt_alg.py operates on float64 arrays); this module gives that
+accuracy from f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -47,15 +47,15 @@ _SPLIT = 4097.0  # 2^12 + 1: Veltkamp constant for float32 (24-bit mantissa)
 # post-optimization MLIR kernels and the buffer assignment were all
 # verified faithful Dekker, so the fault is below the IR we can influence;
 # no XLA flag tried (fusion emitters off, excess precision off, parallelism
-# pins, optimization_barrier placements) changes the values.  The TPU
-# lowering of the same graphs is correct to ~1e-13 (measured).
+# pins, optimization_barrier placements) changes the values.  The GPU
+# lowering of the same graphs is correct to ~1e-14 (measured on an H100).
 #
 # Escape hatch: on the CPU backend (the TEST venue — conftest enables x64)
 # the EFT primitives are backed by native f64 instead: each returns the
 # same (hi, lo) DS pair, computed as one f64 op + exact split.  That is
 # VALID double-single arithmetic of at-least-DS accuracy, so every driver,
 # prox, series and reduction exercises identical logic; the true f32 EFT
-# path is what compiles for TPU, where it is measured correct.  Override
+# path is what compiles for the GPU, where it is measured correct.  Override
 # with F64_FALLBACK[0] = True/False (None = auto by backend).
 
 F64_FALLBACK = [None]
@@ -147,10 +147,9 @@ def split(a):
 def two_prod(a, b):
     """p + err == a * b exactly, p = fl(a * b) (Dekker).
 
-    17 flops: there is NO cheaper path on TPU — XLA emits no FMA
-    contraction for ``a*b - p`` (it folds to exactly 0 on both TPU and
-    CPU, probed incl. optimization_barrier variants), so the Veltkamp
-    split is mandatory."""
+    17 flops: XLA exposes no FMA primitive and folds a written-out
+    ``a*b - p`` to exactly 0 (probed incl. optimization_barrier
+    variants), so the Veltkamp split is mandatory."""
     a, b = _bc2(a, b)
     if _use_f64():
         # exact: a f32xf32 product fits in f64 (48 <= 53 bits), and the
@@ -297,10 +296,10 @@ def sum_along(x, axis, keepdims=False, sloppy=False):
 
     Summing hi and lo with jnp.sum would drop the error terms; folding
     pairwise with DS adds keeps ~49-bit accuracy at O(log n) depth.  Uses
-    only slice/concat/elementwise ops so it lowers inside Pallas kernels.
-    ``sloppy=True`` folds with `add_sloppy` (7 vs 11 flops/add) — the
-    partial-sum error bound that justifies it holds for reduction trees
-    (same argument as the Pallas kernel butterflies, ops/pallas_dopt.py).
+    only slice/concat/elementwise ops.  ``sloppy=True`` folds with
+    `add_sloppy` (7 vs 11 flops/add) — the partial-sum error bound that
+    justifies it holds for reduction trees, whose partial sums do not
+    cancel catastrophically.
     """
     from jax import lax as _lax
 
@@ -386,9 +385,6 @@ def contract(a, B, axis, keepdims=False):
       reduction; partial sums use sloppy DS adds;
     * the ``a_lo*B_lo`` term (2^-48 relative) is dropped.
 
-    Measured on TPU at (1000, 5000): ~7% faster than mul + sum_along under
-    XLA (whose simplifier already sinks broadcast-side splits — the big
-    win cases are Pallas bodies, where nothing is hoisted for you).
     Accuracy ~1e-13 relative, verified against f64 in
     tests/test_double_single.py.
     """

@@ -3,16 +3,16 @@
 The DS fast-gram engine (algorithms/fastgram.py, ``fast_gram="ds"``) needs
 f64-grade m x m algebra without ``jax_enable_x64``: Schulz inverse polish,
 trace-series log-det terms, and a Cholesky fallback for ill-conditioned
-Grams.  TPU f64 is emulated (~25x, CLAUDE.md) and these matrices are tiny
-(m ~ 30-100 for the reference's D-opt benchmarks), so every product here is
-a BROADCAST elementwise DS multiply reduced with error-free pairwise adds —
-O(m^3) f32 VPU flops with ~30x the constant of a plain matmul.  Memory for
+Grams.  These matrices are tiny (m ~ 30-100 for the reference's D-opt
+benchmarks), so every product here is a BROADCAST elementwise DS multiply
+reduced with error-free pairwise adds — O(m^3) f32 flops with ~30x the
+constant of a plain matmul.  Memory for
 the (m, m, m) intermediate bounds the sensible range to m <~ 300; the
 large-m regime belongs to the int8-Ozaki contractions
 (mixed_precision.ozaki_gram / ozaki_mm), not to this module.
 
-No reference counterpart (the reference is f64 numpy throughout); this is
-TPU-native machinery in the sense of SURVEY.md §7 "numerical parity".
+No reference counterpart (the reference is f64 numpy throughout); see
+SURVEY.md §7 "numerical parity".
 """
 
 from __future__ import annotations

@@ -1,13 +1,13 @@
-"""Relatively-smooth f-oracles — TPU-native re-designs.
+"""Relatively-smooth f-oracles — JAX re-designs.
 
-Replaces /root/reference/accbpg/functions.py:27-194,908-1104.  Key compute
+Replaces the reference's accbpg/functions.py:27-194,908-1104.  Key compute
 redesigns versus the reference:
 
 * ``DOptimalObj``: one Cholesky factorization of H*diag(x)*H^T shared by the
   log-det and the gradient (the reference does a separate slogdet + solve,
   functions.py:46-58).  logdet = 2*sum(log diag(chol)); gradient
   g_i = -||R^{-T} h_i||^2 via a triangular solve — the Gram product and the
-  triangular solves are MXU-friendly GEMMs.  With H column-sharded over a
+  triangular solves are dense matrix products.  With H column-sharded over a
   mesh, the Gram accumulation psums automatically under jit.
 * ``PoissonRegression`` / ``KLdivRegression``: gradients as transposed
   matvecs A^T(...) instead of broadcast-and-reduce (functions.py:106-108).
@@ -28,6 +28,12 @@ from jax.scipy.linalg import cho_solve, solve_triangular
 
 from ..struct import pytree_dataclass, static_field
 from .base import SmoothOracle
+
+# Full-precision products for the log-determinant oracles.  At DEFAULT
+# precision a GPU runs f32 matmuls in TF32 (10-bit mantissa), which put
+# 7e-3 on F after 500 BPG iterations of an 80x200 f32 design (H100); f64
+# products are unaffected.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @pytree_dataclass
@@ -64,7 +70,7 @@ class DOptimalObj(SmoothOracle):
 
     def _chol(self, x):
         HX = self.H * x  # column scaling, broadcasts over rows
-        HXHT = HX @ self.H.T
+        HXHT = jnp.matmul(HX, self.H.T, precision=_HIGHEST)
         return jnp.linalg.cholesky(HXHT)
 
     def value(self, x, key=None):
@@ -88,7 +94,7 @@ class DOptimalObj(SmoothOracle):
     #    can combine carried m x m Grams instead of recontracting. --
 
     def gram(self, x):
-        return (self.H * x) @ self.H.T
+        return jnp.matmul(self.H * x, self.H.T, precision=_HIGHEST)
 
     def logdet_full(self, G):
         R = jnp.linalg.cholesky(G)
@@ -105,21 +111,22 @@ class DOptimalObj(SmoothOracle):
         # mesh-padded problem feeds this gradient into prox_map on
         # accumulated duals; without the +1e30 mask padded coordinates
         # would re-acquire mass (ADVICE r4 medium).
-        return self._mask_pads(-jnp.sum(self.H * (M @ self.H), axis=0))
+        return self._mask_pads(
+            -jnp.sum(self.H * jnp.matmul(M, self.H, precision=_HIGHEST),
+                     axis=0))
 
 
 @pytree_dataclass
 class DOptimalObjMixed(SmoothOracle):
     """``DOptimalObj`` with the O(m^2 n) contractions in exact int8 Ozaki
-    digit GEMMs — f64-grade oracle answers WITHOUT emulated-f64 matmuls.
-
-    TPU f64 matmuls are software-emulated (~25x f32 cost), which is why the
-    BPG/ABPG family's f64-parity mode lost to host numpy at small scales
-    and paid 140 s at 30x10000 (BASELINE.md round-2 table).  Here:
+    digit GEMMs — f64-grade oracle answers WITHOUT f64 matmuls, for
+    hardware whose f64 matmul rate is far below its int8 rate (on the
+    GPU, native f64 is the default; this oracle is an explicit choice).
+    Here:
 
     * Gram ``V diag(x) V^T``: V's digit planes are split once per oracle
       (per-row scales); ``diag(x) -> W = V * x`` is split per call; ONE
-      int8 MXU contraction + exact int32 accumulation gives the Gram to
+      int8 contraction + exact int32 accumulation gives the Gram to
       ~1e-13 relative (``mixed_precision.ozaki_gram``).
     * gradient ``g_j = -v_j^T (Gram)^{-1} v_j``: the m x m inverse is true
       f64 (Cholesky — tiny at these m), then ``M @ V`` runs as a second
@@ -131,8 +138,8 @@ class DOptimalObjMixed(SmoothOracle):
     Gradient accuracy ~1e-12 relative (tests) while the Jacobi-equilibrated
     Gram stays within the f32 factorization's accuracy gate
     (cond(Gs) <~ 1e3); beyond it a small-operand ``lax.cond`` takes one
-    exact f64 factorization per evaluation (sequential/slow on TPU, but
-    finite and correct — no NaN at cond ~1e8, with accuracy then limited
+    exact f64 factorization per evaluation (slower, but finite and
+    correct — no NaN at cond ~1e8, with accuracy then limited
     by condition-number amplification of the int8 Gram's ~1e-13 error;
     ``tests/test_mixed_oracle.py::test_ill_conditioned_gram_graceful``).
     Drop-in for every driver that takes a ``DOptimalObj`` (same
@@ -193,9 +200,7 @@ class DOptimalObjMixed(SmoothOracle):
         from . import double_single as dsl
         from . import mixed_precision as mp
 
-        # W = V diag(x) split in pure f32 double-single instead of emulated
-        # f64 (measured in-scan at 30x10000: whole Gram 250 -> 209 us/iter;
-        # eager/dispatch-bound numbers exaggerate the f64-split share)
+        # W = V diag(x) split in pure f32 double-single instead of f64
         xh = x.astype(jnp.float32)
         xl = (x - xh.astype(x.dtype)).astype(jnp.float32)
         Wh, Wl = dsl.mul((self.Vds_hi, self.Vds_lo), (xh, xl))
@@ -209,8 +214,8 @@ class DOptimalObjMixed(SmoothOracle):
     # 1e-12).  ||E|| ~ eps_f32 * cond(equilibrated Gram), so the fast path
     # covers cond(Gs) up to ~1e3; beyond it (or on an outright f32
     # Cholesky failure) a small-operand lax.cond takes one exact f64
-    # factorization — sequential and slow on TPU, but only for genuinely
-    # ill-conditioned iterates.
+    # factorization — slower, but only for genuinely ill-conditioned
+    # iterates.
     _E_GATE2 = 1e-8  # squared Frobenius threshold (||E||_F <= 1e-4)
 
     def _equilibrated(self, G):
@@ -229,9 +234,8 @@ class DOptimalObjMixed(SmoothOracle):
         correction factor is I + E with E ~ eps_f32 * cond small; 2-term
         trace series; the inverse seed is the f32 triangular solve
         (<= ~1e-4 wrong under the gate, for the caller's Schulz polish).
-        Slow path (gate failed / f32 NaN): ONE true f64 Cholesky — a
-        sequential emulated algorithm on TPU (~ms at m=30), acceptable as
-        a rare escape hatch, never in the common case."""
+        Slow path (gate failed / f32 NaN): ONE true f64 Cholesky, a rare
+        escape hatch, never in the common case."""
         eye32 = jnp.eye(Gs.shape[0], dtype=jnp.float32)
         R = jnp.linalg.cholesky(Gs.astype(jnp.float32))
         R64 = R.astype(jnp.float64)
@@ -243,8 +247,9 @@ class DOptimalObjMixed(SmoothOracle):
 
         def fast():
             trE = jnp.trace(E).astype(jnp.float64)
-            # HIGHEST: TPU f32 matmuls default to bf16 passes, which would
-            # put ~1e-3 relative noise on tr(E^2) (see fastgram.schulz)
+            # HIGHEST: f32 matmuls may default to reduced-precision passes
+            # (TF32 on the GPU), ~1e-3 relative noise on tr(E^2) (see
+            # fastgram.schulz)
             trE2 = jnp.trace(jnp.matmul(
                 E, E, precision=jax.lax.Precision.HIGHEST)
             ).astype(jnp.float64)
@@ -318,16 +323,16 @@ class DOptimalObjMixed(SmoothOracle):
 @pytree_dataclass
 class DOptimalObjDS(SmoothOracle):
     """``DOptimalObj`` in DOUBLE-SINGLE (two-f32) arithmetic: f64-grade
-    oracle answers from pure f32/int8 TPU hardware ops — no
-    ``jax_enable_x64``, no emulated-f64 ANYWHERE (the ``DOptimalObjMixed``
-    oracle still pays emulated-f64 elementwise combines and logs).
+    oracle answers from pure f32/int8 ops — no ``jax_enable_x64``, no f64
+    ANYWHERE (the ``DOptimalObjMixed`` oracle still runs f64 elementwise
+    combines and logs).
 
     Exposes the DS fast-Gram protocol consumed by the ``fast_gram="ds"``
     driver steps (algorithms/bpg.py): every multi-plane value is a DS
     ``(hi, lo)`` f32 pair,
 
     * ``gram_ds``: W = V diag(x) in DS, digit-split in f32
-      (``digit_split_rows_ds``), ONE int8 MXU contraction with exact int32
+      (``digit_split_rows_ds``), ONE int8 contraction with exact int32
       accumulation, DS combine (``ozaki_gram_ds``) — relative ~1e-13;
     * ``logdet_full_ds``: exact power-of-two Jacobi equilibration, f32
       Cholesky + DS trace-series correction under a residual gate, DS
@@ -451,7 +456,8 @@ class DOptimalObjDS(SmoothOracle):
                 jnp.float32(2.0))
             # logdet(I + E) = tr E - tr E^2/2 + tr E^3/3 (E ~ <= 1e-4
             # under the gate; quartic term <= m*1e-16).  HIGHEST precision:
-            # TPU f32 matmuls default to bf16 passes (see fastgram.schulz)
+            # f32 matmuls may default to reduced precision (see
+            # fastgram.schulz)
             hi = jax.lax.Precision.HIGHEST
             E2 = jnp.matmul(E, E, precision=hi)
             corr = (jnp.trace(E) - 0.5 * jnp.trace(E2)
@@ -510,10 +516,10 @@ class PoissonRegression(SmoothOracle):
 
 @pytree_dataclass
 class _RegressionMixed(SmoothOracle):
-    """Shared machinery for f64-grade regression oracles without emulated
-    f64 GEMVs: both orientations of the data matrix are pre-split into
-    int8 Ozaki digit planes (``mixed_precision.digit_split_matrix``), and
-    the two per-iteration contractions A@x and r@A run as exact int8 MXU
+    """Shared machinery for f64-grade regression oracles without f64
+    GEMVs: both orientations of the data matrix are pre-split into int8
+    Ozaki digit planes (``mixed_precision.digit_split_matrix``), and the
+    two per-iteration contractions A@x and r@A run as exact int8
     products (~1e-12 relative).  The O(N)/O(n) elementwise work stays true
     f64 (cheap).  Needs jax_enable_x64; storage is 2*levels bytes per
     matrix entry (vs 8 for f64).
@@ -542,14 +548,10 @@ class _RegressionMixed(SmoothOracle):
                    A_p=mp.pack_digit_planes(dA), A_s=sA,
                    levels=levels, max_diag=max_diag, **kw)
 
-    # PACKED single-matmul GEMVs (round 3): the per-pair ozaki_gemv loop
-    # re-reads each digit plane once per diagonal pair (~4x the packed
-    # form's HBM traffic at 7 levels).  Unlike the D-opt rank-1 step —
-    # where the 21 small per-pair dot_generals overlap with VPU-side work
-    # and measure faster (_dopt_u note) — a regression oracle's GEMV IS
-    # the whole op, so the one-pass packed contraction wins outright:
-    # Poisson 20000x10000x500 iters measured 3.96 -> 2.13 s on v5e
-    # (f32 path: 1.24 s; benchmarks/poisson_scale.py --mixed).
+    # PACKED single-matmul GEMVs: the per-pair ozaki_gemv loop re-reads
+    # each digit plane once per diagonal pair (~4x the packed form's
+    # memory traffic at 7 levels), and a regression oracle's GEMV IS the
+    # whole op, so the one-pass packed contraction is used here.
 
     def _ax(self, x):
         from . import mixed_precision as mp
@@ -606,10 +608,9 @@ class PoissonRegressionDS(_RegressionMixed):
     """``PoissonRegressionMixed`` with DOUBLE-SINGLE elementwise internals
     (round-4 verdict item 8): the two packed int8 GEMVs combine in DS
     (``ozaki_gemv_packed_ds``) and the m-vector log/divides run as DS
-    f32-pair transcendentals — no emulated-f64 arithmetic anywhere inside
-    the oracle; f64 appears only at the driver API boundary (the iterate
-    and the returned value/gradient).  Same ~1e-13-relative oracle grade;
-    removes the mixed oracle's emulated-f64 elementwise tax on TPU."""
+    f32-pair transcendentals — no f64 arithmetic anywhere inside the
+    oracle; f64 appears only at the driver API boundary (the iterate and
+    the returned value/gradient).  Same ~1e-13-relative oracle grade."""
 
     accept_tol = 1e-10
 
@@ -819,7 +820,7 @@ class FrobeniusSymLoss(SmoothOracle):
 
 @pytree_dataclass
 class FrobeniusSymLossMixed(SmoothOracle):
-    """``FrobeniusSymLoss`` at f64 grade without emulated-f64 GEMMs.
+    """``FrobeniusSymLoss`` at f64 grade without f64 GEMMs.
 
     The one large contraction per oracle call, M @ X (n x n x r), runs as
     an exact int8 Ozaki product against digit planes of the CONSTANT
@@ -873,9 +874,8 @@ class FrobeniusSymLossMixed(SmoothOracle):
         XtX = self._xtx(x)
         MX = self._mx(x)
         f = 0.5 * (self.M_norm2 + jnp.vdot(XtX, XtX)) - jnp.vdot(x, MX)
-        # x @ XtX through the same exact int8 route: a TPU f64 matmul is
-        # software-emulated (~25x an f32 one) and would dominate this
-        # oracle's per-iteration cost despite its O(n r^2) flop count
+        # x @ XtX through the same exact int8 route, so the oracle runs no
+        # f64 matmul at all
         dXtX, sXtX = mp.digit_split_matrix(XtX, self.levels)
         xXtX = mp.ozaki_mm(x, mp.pack_digit_planes(dXtX), sXtX,
                            levels_b=self.levels, levels_m=self.levels)
@@ -884,10 +884,8 @@ class FrobeniusSymLossMixed(SmoothOracle):
 
 @pytree_dataclass
 class FrobeniusSymLossDS(SmoothOracle):
-    """``FrobeniusSymLossMixed`` with DOUBLE-SINGLE interiors (round-4
-    profiling: the mixed oracle measured 2.38 ms/call at 4096x32 —
-    levels-INVARIANT, so bound by its emulated-f64 combines and tails,
-    not by streaming M's digit planes).  Here every combine and tail is
+    """``FrobeniusSymLossMixed`` with DOUBLE-SINGLE interiors: every
+    combine and tail is
     (hi, lo) f32: M @ X through ``ozaki_mm_presplit_ds``, X^T X through
     ``ozaki_gram_ds``, X @ (X^T X) through ``ozaki_mm_ds``, all vdots as
     DS folds.  f64 exists only at the driver API boundary.

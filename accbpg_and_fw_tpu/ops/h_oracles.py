@@ -1,7 +1,7 @@
 """Legendre kernel (h-oracle) library — all 17 kernels of the reference.
 
-TPU-first re-implementations of the h-oracles in
-/root/reference/accbpg/functions.py:238-905.  Every class is a frozen pytree
+JAX re-implementations of the h-oracles in the reference's
+accbpg/functions.py:238-905.  Every class is a frozen pytree
 dataclass with pure jnp methods: closed-form proxes stay closed-form, the
 simplex multipliers use the fixed-bound Newton kernels from ``roots.py``, and
 the reference's cvxpy fallbacks (PolyDiv prox, functions.py:874-894) are
@@ -135,25 +135,13 @@ class BurgEntropySimplex(BurgEntropy):
     jit-compiled warm-started Newton (roots.simplex_inv_multiplier); every
     Newton step is ONE fused full-vector reduction that psums under
     sharding.
-
-    ``use_pallas=True`` runs the whole root-find as a single Pallas TPU
-    kernel with the vector resident in VMEM (ops/pallas_kernels.py) —
-    ~an-order-of-magnitude lower latency for the latency-bound small/medium
-    sizes.  Opt-in: only valid for UNSHARDED float32 iterates on a single
-    chip (a sharded input needs the XLA path's global reductions).
     """
 
     eps: Any = 1e-8
-    use_pallas: bool = static_field(default=False)
 
     def prox_map(self, g, L):
         gg = g / L
-        if self.use_pallas:
-            from .pallas_kernels import simplex_inv_multiplier_pallas
-
-            c = simplex_inv_multiplier_pallas(gg)
-        else:
-            c = simplex_inv_multiplier(gg, self.eps)
+        c = simplex_inv_multiplier(gg, self.eps)
         return 1.0 / (gg + c)
 
     # -- warm-started variants for stateful drivers (fast_gram steps):
@@ -362,11 +350,9 @@ class SumOf2nd4thPowersPositiveOrthant(SumOf2nd4thPowers):
 @pytree_dataclass
 class SumOf2nd4thPowersPositiveOrthantDS(SumOf2nd4thPowersPositiveOrthant):
     """``SumOf2nd4thPowersPositiveOrthant`` with a DOUBLE-SINGLE-interior
-    prox (round 5): the mirror point, clip, norm reductions and Cardano
-    root all run in (hi, lo) f32 pairs — f64-grade answers with NO
-    emulated-f64 arithmetic in the prox (on TPU the plain-f64 prox
-    measured 2.15 ms/call at 4096x32, dominated by f64 elementwise
-    emulation; the kernel math is reference functions.py:558-577 +
+    prox: the mirror point, clip, norm reductions and Cardano root all run
+    in (hi, lo) f32 pairs — f64-grade answers with NO f64 arithmetic in
+    the prox (the kernel math is reference functions.py:558-577 +
     :522-544).  f64 exists only at the driver API boundary, matching the
     ``FrobeniusSymLossDS`` f-oracle — together they form the f64-grade
     SymNMF fast path.  value/grad/divergence stay inherited (exact f64) —

@@ -1,21 +1,22 @@
 """Exact-accumulation mixed-precision contractions (Ozaki-style int8 splits).
 
-TPU f64 matmuls have no hardware path: XLA lowers them to software-emulated
-scalar arithmetic (measured ~3.2 ms for a 1000x5000 f64 GEMV inside a scan,
-~25x slower than the same f32 contraction).  This module reaches near-f64
-GEMV accuracy on the int8 MXU instead:
+On hardware whose f64 matmul rate is far below its int8 rate, near-f64
+GEMV accuracy can come from int8 products instead.  This module does so
+(on the GPU, native f64 is the default and these routes are explicit
+choices):
 
 * each operand is split into radix-64 signed digits (int8), with
   power-of-two scales so the split is EXACT;
-* digit-pair products are at most 2^14, so int32 MXU accumulation over
+* digit-pair products are at most 2^14, so int32 accumulation over
   K <= 2^16 rows is EXACT — no rounding anywhere until the final f64
   combine;
 * truncating digit pairs beyond diagonal D leaves a relative error
   ~64^-D; with 7 digit levels and D=6 the measured error is ~3e-12
-  (vs 2e-15 for true f64, 1.7e-7 for f32) at ~1/9 the f64 cost.
+  (vs 2e-15 for true f64, 1.7e-7 for f32).
 
-Used by the D-opt Frank-Wolfe solvers for the O(mn) rank-1 w-updates; the
-split of the fixed design matrix is precomputed once per solve.
+Used by the D-opt Frank-Wolfe solvers' "mixed" and "ds" engines for the
+O(mn) rank-1 w-updates; the split of the fixed design matrix is
+precomputed once per solve.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ def digit_split_vector(a, levels: int):
 
 def pack_digit_planes(B_digits):
     """(levels, m, n) int8 -> (m, levels*n) packed layout so ALL digit-pair
-    products of a GEMV happen in ONE int8 MXU contraction (one pass over
+    products of a GEMV happen in ONE int8 contraction (one pass over
     the planes instead of levels_a * levels_b separate dispatches)."""
     levels, m, n = B_digits.shape
     return jnp.transpose(B_digits, (1, 0, 2)).reshape(m, levels * n)
@@ -66,15 +67,14 @@ def ozaki_gemv(a, B_digits, sB, levels_a: int = 7, max_diag: int = 6):
     """u = a @ B through exact int8/int32 digit products.
 
     a: (m,) f64; B_digits/sB from digit_split_matrix.  Digit pairs (p, q)
-    with p + q <= max_diag are contracted on the int8 MXU with exact int32
+    with p + q <= max_diag are contracted as int8 products with exact int32
     accumulation; same-diagonal results combine in int32 and lift to f64
     with their shared exact scale.
 
-    This per-pair form IS the D-opt solver hot path (d_opt.py:_dopt_u): its
-    21 independent small dot_generals overlap with the VPU-side H update in
-    the same step, measuring ~25% faster end-to-end than the single big
-    contraction of ``ozaki_gemv_packed`` — which wins only when the GEMV is
-    isolated (use it for standalone batched contractions).
+    This per-pair form is the D-opt "mixed" engine's w-update
+    (d_opt.py:_dopt_u): 21 independent small dot_generals that the
+    compiler may schedule beside the H update; ``ozaki_gemv_packed`` is
+    the single-contraction form for isolated GEMVs.
     """
     levels_b = B_digits.shape[0]
     a_digits, sa = digit_split_vector(a, levels_a)
@@ -96,17 +96,16 @@ def ozaki_gemv(a, B_digits, sB, levels_a: int = 7, max_diag: int = 6):
 
 
 def ozaki_gemv_packed(a, B_packed, sB, levels_b: int, levels_a: int = 7):
-    """u = a @ B with ALL levels_a x levels_b digit pairs in one MXU call.
+    """u = a @ B with ALL levels_a x levels_b digit pairs in one contraction.
 
     B_packed from ``pack_digit_planes``; one (levels_a, m) x (m, levels_b*n)
     int8 contraction (exact int32 accumulation — one pass over the digit
-    planes instead of one per pair).  The combine stays off the emulated
-    f64 path: same-diagonal products sum in int32 (exact, bounded by
+    planes instead of one per pair).  The combine stays in integer and
+    f32 arithmetic: same-diagonal products sum in int32 (exact, bounded by
     levels * K * 2^14 < 2^31), the three leading diagonals lift to f64
     individually, and the geometrically-vanishing tail (scale <= BASE^-5 of
     the result) accumulates in f32 whose rounding is far below the digit
-    truncation.  Measured ~1e-12 relative error at ~155us for 1000x5000
-    (vs ~370us for the per-pair loop, ~3.2ms for emulated f64).
+    truncation.  Measured ~1e-12 relative error.
     """
     n = B_packed.shape[1] // levels_b
     a_digits, sa = digit_split_vector(a, levels_a)  # (levels_a, m) int8
@@ -138,12 +137,11 @@ def ozaki_gemv_packed(a, B_packed, sB, levels_b: int, levels_a: int = 7):
 
 
 # ---------------------------------------------------------------------------
-# GEMM-level Ozaki contractions (round 2): the O(m^2 n) products of the
-# BPG/ABPG D-optimal oracle — Gram V diag(x) V^T and M @ V — as ONE int8
-# MXU contraction each, with exact int32 accumulation.  This is what lifts
-# the accelerated family's f64-parity mode off the emulated-f64 path
-# (reference workload: ABPG-gain on D-opt 30x10000,
-# /root/reference/ipynb/ABPGvsFW/ex_Dopt_ABPGvsFW.ipynb cell5).
+# GEMM-level Ozaki contractions: the O(m^2 n) products of the BPG/ABPG
+# D-optimal oracle — Gram V diag(x) V^T and M @ V — as ONE int8
+# contraction each, with exact int32 accumulation (reference workload:
+# ABPG-gain on D-opt 30x10000, ipynb/ABPGvsFW/ex_Dopt_ABPGvsFW.ipynb
+# cell5).
 # ---------------------------------------------------------------------------
 
 
@@ -167,10 +165,7 @@ def digit_split_rows_ds(Wh, Wl, levels: int):
     """``digit_split_rows`` for a DOUBLE-SINGLE input (hi, lo f32 planes)
     — pure f32 arithmetic throughout.
 
-    Measured motivation (in-scan, 30x10000, v5e): the whole mixed Gram
-    drops 250 -> 209 us/iter when the per-iteration W = V diag(x) split
-    runs in f32 planes instead of emulated-f64 elementwise passes.  Digits are
-    taken from the hi plane (an off-by-one near a rounding boundary only
+    Digits are taken from the hi plane (an off-by-one near a rounding boundary only
     grows |digit| to <= 65, still exact in int8/int32 products), and the
     residual update is exact: power-of-two scalings are exact in both
     planes, the hi subtraction cancels exactly, and a two_sum renormalizes
@@ -213,7 +208,7 @@ def ozaki_gram_ds(dA, sA, dW, sW, max_diag: int | None = None):
     """``ozaki_gram`` with a DOUBLE-SINGLE combine: G = A @ W^T as a DS
     (hi, lo) pair from pure f32/int8 arithmetic — no ``jax_enable_x64``.
 
-    The int8 MXU contraction and diagonal grouping are identical to
+    The int8 contraction and diagonal grouping are identical to
     ``ozaki_gram``; each int32 diagonal converts EXACTLY to DS
     (``double_single.int32_to_ds`` — the accumulators exceed the 2^24
     exact-f32 range at n >= ~4096) and accumulates through DS adds with
@@ -333,17 +328,13 @@ def ozaki_gemv_packed_ds(a, B_packed, sB, levels_b: int, levels_a: int = 7):
     B (``pack_digit_planes`` layout), with a DS combine — no f64 anywhere.
 
     The D-opt DS engine's w-update u = (Hv)^T V (algorithms/d_opt.py
-    ``_dopt_step_ds``): ONE (levels_a, m) x (m, levels_b*n) int8 MXU
+    ``_dopt_step_ds``): ONE (levels_a, m) x (m, levels_b*n) int8
     contraction reads each digit plane once (exact int32 accumulation,
     bounded by m * 65^2 * levels < 2^31 for m <= 65k); the
     levels_a + levels_b - 1 diagonal groups convert exactly to DS, scale
     by exact powers of two, and fold in one pairwise DS reduction.
-    Truncation ~BASE**-levels relative.
-
-    Measured on v5e at 1000x5000 in-scan: 70 us/iter vs 144 us for the
-    pure-VPU ``double_single.contract`` (which is flop-bound: ~29 DS flops
-    per element vs the HBM floor of ~68 us for the 40 MB read) at ~1e-12
-    relative accuracy — the MXU does the accumulation work instead."""
+    Truncation ~BASE**-levels relative (~1e-12 measured), against ~29
+    DS flops per element for the elementwise ``double_single.contract``."""
     from . import double_single as _ds
 
     n = B_packed.shape[1] // levels_b

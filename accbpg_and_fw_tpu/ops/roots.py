@@ -48,7 +48,7 @@ def solve_cubic_ds(c, beta):
     (the correction divides by an f32 derivative — the correction itself
     is ~1e-8-relative, so an f32 denominator leaves ~1e-16 relative error
     in z).  This is the f64-grade prox root for the SumOf2nd4thPowers
-    kernel family without any emulated-f64 ops (reference cubic:
+    kernel family without any f64 ops (reference cubic:
     functions.py:522-544).
     """
     from . import double_single as dsl
@@ -72,8 +72,8 @@ def simplex_inv_multiplier(gg, eps, max_newton=100, c_warm=None):
     simplex prox; reference: functions.py:336-356).
 
     Same monotone from-below Newton as the reference (functions.py:344-355),
-    restructured for TPU latency — the prox is called inside every driver
-    iteration and each sequential reduction pass over ``gg`` costs ~25 us:
+    restructured for latency — the prox is called inside every driver
+    iteration and each sequential reduction pass over ``gg`` is a launch:
 
     * The reference's bisection phase (:337-341) never iterates: at its
       start ``c0 = cmin + 1`` the minimum coordinate contributes exactly

@@ -2,10 +2,10 @@
 
 The reference's iteration-complexity studies run K = 3-10 repeats over grids
 of (m, n) configs as sequential Python loops (SURVEY.md §6, e.g.
-ipynb/ABPGvsFW/ex_Dopt_FW_m80.ipynb:cell3).  The TPU-native equivalent: vmap
-the whole solve over the instance batch, so K independent solves compile to
-ONE scan whose per-iteration work is batched GEMMs on the MXU instead of K
-sequential GEMV streams.
+ipynb/ABPGvsFW/ex_Dopt_FW_m80.ipynb:cell3).  Here the whole solve is vmapped
+over the instance batch, so K independent solves compile to ONE scan whose
+per-iteration work is batched contractions instead of K sequential GEMV
+streams.
 """
 
 from __future__ import annotations
@@ -92,8 +92,8 @@ def _batch_solve(away, refresh_every, num_iters, u_mode, Vs, x0s, eps):
 def _batch_solve_ds(away, num_iters, Vh, Vl, carry, eps, inv_m_hi, inv_m_lo,
                     Vp=None, sVu=None):
     """``Vp``/``sVu`` (optional, trace-time-static presence): per-instance
-    packed int8 digit planes + column scales for the MXU u-update fast
-    path (see d_opt._dopt_step_ds) — supplied by the caller for instances
+    packed int8 digit planes + column scales for the big-n u-update path
+    (see d_opt._dopt_step_ds) — supplied by the caller for instances
     above d_opt._OZAKI_U_MIN_SIZE."""
     cfg = _DOptCfg(away=away, mixed=False)
 
@@ -124,10 +124,8 @@ def dopt_fw_batch_ds(Vs, x0s, eps, num_iters, away=True, refresh_every=0,
                      exit_every=2048):
     """Batch D-opt FW(-away) in DOUBLE-SINGLE precision: the trajectories
     carry ~49 significand bits (certify slack targets down to 1e-8, like
-    float64) but every operation is pure f32 — no emulated-f64 matmuls,
-    so the vmapped batch runs at f32 speed.  This is the sweep engine for
-    tiny/medium m where the round-1 f64 batch LOST to sequential numpy
-    (BASELINE.md "honest" row).
+    float64) but every operation is pure f32.  Whether that beats the
+    native f64 batch on a GPU has not been measured (PERF.md).
 
     Vs: (K, m, n); x0s: (K, n).  Returns ``(x, F, SP, SN)`` with leading
     batch axis (x in float64, reconstructed from the DS planes).
@@ -138,17 +136,12 @@ def dopt_fw_batch_ds(Vs, x0s, eps, num_iters, away=True, refresh_every=0,
 
     ``exit_every``: all-done early-exit granularity — the scan launches in
     blocks of at most this many iterations so a generous ``num_iters``
-    budget costs only the iterations actually run (one ~ms host sync per
-    block; measured: the same K=32 sweep at a 30000 budget was 3.1 s as a
-    single launch vs ~1 s with blocks, instances converging by ~9k).
+    budget costs only the iterations actually run (one host sync per
+    block).
 
-    The round-2 "K >= 2 vmapped drift / small-m limit cycle" KNOWN LIMIT
-    is CLOSED (round 3): its root cause was XLA rewriting the
-    error-free-transform patterns once vmap introduced broadcast operands
-    (see double_single._bc2 and the CPU f64-backed escape hatch); with
-    the EFT entry points broadcast-materialized, the batch engine
-    fresh-certifies 1e-8 at m = 12 AND m = 30 (16/16 instances measured
-    on-chip, worst slack 9.99e-9; tests/test_parallel.py).
+    The error-free transforms are broadcast-materialized at their entry
+    points (see double_single._bc2): XLA otherwise rewrote them once vmap
+    introduced broadcast operands, which left K >= 2 batches drifting.
     """
     import numpy as onp
 
@@ -180,7 +173,7 @@ def dopt_fw_batch_ds(Vs, x0s, eps, num_iters, away=True, refresh_every=0,
     imh, iml = _inv_m_ds_np(Vs64.shape[1])
     Vp = sVu = None
     if Vs64[0].size >= _d_opt._OZAKI_U_MIN_SIZE:
-        # per-instance packed int8 digit planes for the MXU u-update
+        # per-instance packed int8 digit planes for the big-n u-update
         from ..ops import mixed_precision as mp
 
         packed, scales = [], []
@@ -242,39 +235,6 @@ def dopt_fw_batch_ds(Vs, x0s, eps, num_iters, away=True, refresh_every=0,
     return x, F, SP, SN
 
 
-def _resolve_auto_batch_precision(Vs):
-    """Route ``precision="auto"`` for sweep batches (round 5, mirroring
-    ``d_opt._resolve_auto_u_mode``): the grid-batched lazy-H kernel for
-    LARGE-m instances on a TPU backend (its per-iteration cost is flat in
-    m while the DS scan's O(m^2) rank-1 update grows), the vmapped DS
-    scan otherwise (small m amortizes across the batch on the MXU; the
-    lazy kernel's fixed ~20-primitive body dominates there).  The m
-    threshold and VMEM bound follow the on-chip A/B in BASELINE.md
-    (round 5)."""
-    from ..ops.pallas_dopt import _next_pow2
-    from ..ops.pallas_dopt_lazy import _LANE
-
-    shape = getattr(Vs, "shape", None)
-    if (jax.default_backend() == "tpu" and shape is not None
-            and len(shape) == 3):
-        _, m, n = shape
-        # the kernel builder's own padding rules (shared helpers, so the
-        # VMEM estimate cannot drift from the real packed-buffer sizes)
-        MP = _next_pow2(max(m, 8))
-        NP = -(-n // _LANE) * _LANE
-        # double-buffered per-instance blocks must fit the compiler grant
-        vmem_bytes = 2 * (8 * MP * NP + 8 * MP * MP)
-        # m >= 64: measured on-chip A/B at K=3, n=1000, 20k iters (warm):
-        # lazy grid 0.58 s (m=100) / 0.71 s (m=200) vs vmapped DS 1.74 /
-        # 2.09 s — the lazy kernel's ~10 us/inst/iter op-count floor beats
-        # the DS scan's O(m^2)-growing rank-1 update from m ~ 64 up; below
-        # that (e.g. the 30x1000 K=32 sweeps, DS ~3 us/inst/iter) the
-        # vmapped engines win.
-        if m >= 64 and vmem_bytes <= 70 * 1024 * 1024:
-            return "pallas_lazy"
-    return "ds"
-
-
 def dopt_fw_batch(Vs, x0s, eps, num_iters, away=True, refresh_every=0,
                   precision="native"):
     """Solve a batch of D-optimal design instances in one computation.
@@ -288,66 +248,26 @@ def dopt_fw_batch(Vs, x0s, eps, num_iters, away=True, refresh_every=0,
     ``refresh_every``: refactorize (H, w, logdet) from the current iterate
     every R iterations inside the scan — cancels rank-1 rounding drift for
     float32 runs (f32 incremental state stalls around slack ~1e-4; f64
-    needs no refresh: measured m=30 f64-on-TPU batches converge to 1e-8
-    with iteration counts matching the reference numpy).  O(m^2 n) per
-    refresh, amortized over R iterations.
+    needs no refresh).  O(m^2 n) per refresh, amortized over R iterations.
 
-    ``precision="auto"`` routes by instance size: the grid-batched lazy-H
-    Pallas kernel ("pallas_lazy") for large-m f64-grade sweeps on TPU,
-    the vmapped double-single scan ("ds") otherwise — see
-    ``_resolve_auto_batch_precision``.
-
-    Precision guidance (measured, one v5e chip, K=32 instances of 30x1000):
-    "ds" (double-single, f64-grade from pure f32) certifies 1e-8 in 0.94 s
-    (11.4x over sequential numpy) and is the default choice for sweeps;
-    "pallas" runs the same DS math as a lockstep fused kernel (groups of
-    16 instances per pallas_call) and shaves the dispatch overhead further
-    for latency-critical sweeps; f32 native supports slack targets down to
-    ~1e-4 only; f64 native certifies 1e-8 with numpy-matching iteration
-    counts but loses to host numpy at tiny m (emulated f64) — prefer it
-    for m in the hundreds and above, or run tiny-m f64 sweeps on CPU;
-    "mixed" replaces the f64 w-update contraction with the exact-digit
-    int8-Ozaki GEMV (~3e-12 relative — trajectories deviate chaotically
-    through the discrete line searches like any valid arithmetic change).
+    ``precision``: "native" (the input dtype's exact arithmetic; what
+    "auto" runs), "mixed" (the f64 w-update contraction through the
+    exact-digit int8-Ozaki GEMV, ~3e-12 relative — trajectories deviate
+    chaotically through the discrete line searches like any valid
+    arithmetic change) or "ds" (double-single, f64-grade from pure f32;
+    ``dopt_fw_batch_ds``).  f32 "native" supports slack targets down to
+    ~1e-4 only.  Any other value raises ``ValueError``.
 
     Note: under vmap the toward/away ``lax.cond`` lowers to a select (both
     branches execute); that doubles the per-iteration FLOPs but turns K
-    independent O(mn) GEMVs into one (K, m, n) batched contraction — a large
-    net win on the MXU for sweep workloads.
+    independent O(mn) GEMVs into one (K, m, n) batched contraction.
     """
-    if precision == "pallas":
-        # lockstep fused-kernel engine: all instances of a group advance
-        # inside ONE pallas_call (double-single precision, per-instance
-        # freeze); measured 2x0.41 s for K=32 of 30x1000 to certified 1e-8
-        # on v5e vs 0.94 s for the vmapped DS scan — prefer it for
-        # latency-critical sweeps, "ds" for the general case
-        from ..ops.pallas_dopt import dopt_fw_pallas_batch
-
-        interpret = jax.default_backend() != "tpu"
-        return dopt_fw_pallas_batch(Vs, x0s, eps, num_iters, away=away,
-                                    refresh_every=refresh_every,
-                                    interpret=interpret)
-    if precision == "auto":
-        precision = _resolve_auto_batch_precision(Vs)
-    if precision == "pallas_lazy":
-        # grid-over-instances lazy-H engine: the sweep-regime route for
-        # LARGE m (each instance's whole launch block runs inside one
-        # fused kernel; per-block H0 folds batch over K in XLA).  For
-        # tiny m prefer "ds"/"pallas" — the lazy kernel's fixed per-
-        # iteration op count dominates below m ~ a few hundred.
-        from ..ops.pallas_dopt_lazy import dopt_fw_pallas_lazy_batch
-
-        interpret = jax.default_backend() != "tpu"
-        return dopt_fw_pallas_lazy_batch(Vs, x0s, eps, num_iters,
-                                         away=away, interpret=interpret,
-                                         refresh_every=refresh_every)
     if precision == "ds":
         return dopt_fw_batch_ds(Vs, x0s, eps, num_iters, away=away,
                                 refresh_every=refresh_every)
-    if precision not in ("native", "mixed"):
+    if precision not in ("auto", "native", "mixed"):
         raise ValueError(f"unknown precision {precision!r}; expected "
-                         "'native', 'mixed', 'ds', 'pallas' or "
-                         "'pallas_lazy'")
+                         "'auto', 'native', 'mixed' or 'ds'")
     Vs_in = Vs
     Vs = jnp.asarray(Vs)
     _warn_if_downcast(Vs_in, Vs)

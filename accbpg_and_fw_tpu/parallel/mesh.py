@@ -1,7 +1,7 @@
 """Mesh construction and problem sharding.
 
 The reference is single-process NumPy (SURVEY.md §2.6); this module is the
-TPU-native distributed layer.  Sharding layout for every problem family:
+distributed layer.  Sharding layout for every problem family:
 
 * D-optimal design: H is m-by-n with n >> m.  H shards column-wise
   P(None, 'data'); the iterate x, the negative-gradient w and every other
@@ -32,8 +32,9 @@ from ..struct import replace
 
 def distributed_init(coordinator_address=None, num_processes=None,
                      process_id=None):
-    """Initialize the multi-host JAX runtime (ICI within a slice, DCN across
-    hosts).  No-op when running single-process."""
+    """Initialize the multi-process JAX runtime: the GPUs of one host are
+    joined all to all by NVLink and NCCL carries the collectives, hosts
+    talk over the network.  No-op when running single-process."""
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(

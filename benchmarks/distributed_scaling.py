@@ -3,7 +3,7 @@ cluster, gloo) vs the single-process virtual mesh.
 
 The column-sharded FW-away step pays a fixed set of collectives per
 iteration (Gram psum, argmax/argmin reductions, simplex-Newton scalar
-psums — BASELINE.md scaling section).  This harness measures iterations/s
+psums).  This harness measures iterations/s
 of the SAME sharded computation on (a) 8 virtual devices in one process
 and (b) 2 processes x 4 virtual devices with gloo cross-process
 collectives, isolating the cross-process transport cost.  Run:
@@ -100,7 +100,7 @@ if __name__ == "__main__":
         # round 5: a second point on the cross-process curve — 4 processes
         # x 2 virtual devices (same 8-device global mesh, more transport
         # edges per collective); the 2->4 growth rate feeds the multi-host
-        # projection's collective model (BASELINE.md scaling section)
+        # projection's collective model
         four = run_case(4)
         print(json.dumps(four), flush=True)
         extra4 = (four["us_per_iter"] - one["us_per_iter"])

@@ -2,11 +2,19 @@
 
 Figures save to ``examples/out/`` (created on demand) with the Agg backend,
 so every study runs headless; ``docs/GALLERY.md`` links the outputs.
+Each gallery script calls ``enable_cache()`` first under ``__main__``, so a
+rerun loads its compiled solvers from JAX's persistent cache.
 """
 
 import os
 
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "out")
+
+
+def enable_cache():
+    from accbpg_and_fw_tpu.compile_cache import enable_compilation_cache
+
+    return enable_compilation_cache()
 
 
 def get_axes(nrows=1, ncols=1, figsize=None):

@@ -67,6 +67,9 @@ def start(m=30, n=2000, eps=1e-8, maxitrs=60000, seeds=(10, 11, 12),
 
 
 if __name__ == "__main__":
+    from _galleryutil import enable_cache
+
+    enable_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--m", type=int, default=30)
     p.add_argument("--n", type=int, default=2000)

@@ -87,6 +87,9 @@ def start(data=None, maxitrs=1000, plot=False, verbose=True):
 
 
 if __name__ == "__main__":
+    from _galleryutil import enable_cache
+
+    enable_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--data", type=str, default=None)
     p.add_argument("--maxitrs", type=int, default=1000)

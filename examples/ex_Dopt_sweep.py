@@ -106,7 +106,7 @@ def start_full(m=20, n_list=(100, 200, 300), K=3, eps_list=(1e-3, 1e-4),
             Vd = jnp.asarray(V, x0.dtype)
             runs = {}
             # with the DS engine selected, run the FW rows through their
-            # DS scan too (f64 on TPU would hit the ~25x emulation tax)
+            # DS scan too
             um = "ds" if fast_gram == "ds" else "auto"
             _, F1, _, _, T1 = acc.D_opt_FW(Vd, x0KY, 1e-8,
                                            maxitrs=num_iters, verbose=False,
@@ -184,6 +184,9 @@ def start_full(m=20, n_list=(100, 200, 300), K=3, eps_list=(1e-3, 1e-4),
 
 
 if __name__ == "__main__":
+    from _galleryutil import enable_cache
+
+    enable_cache()
     import argparse
 
     p = argparse.ArgumentParser()

@@ -65,6 +65,9 @@ def start(m=2000, n=1000, maxitrs=1000, noise=0.001, inexact_noise=1e-6,
 
 
 if __name__ == "__main__":
+    from _galleryutil import enable_cache
+
+    enable_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--m", type=int, default=2000)
     p.add_argument("--n", type=int, default=1000)

@@ -125,6 +125,9 @@ def run_regime(name, maxitrs=2000, verbose=False, save=True,
 
 
 if __name__ == "__main__":
+    from _galleryutil import enable_cache
+
+    enable_cache()
     import sys
 
     if len(sys.argv) > 1 and sys.argv[1] in REGIMES:

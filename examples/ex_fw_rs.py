@@ -97,6 +97,9 @@ def start(maxitrs=500, plot=False, verbose=True, panels=("dopt", "poisson",
 
 
 if __name__ == "__main__":
+    from _galleryutil import enable_cache
+
+    enable_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--maxitrs", type=int, default=500)
     p.add_argument("--plot", action="store_true")

@@ -61,6 +61,9 @@ def start(n=200, r=20, maxitrs=600, epsilon=1e-9, seed=0, plot=False,
 
 
 if __name__ == "__main__":
+    from _galleryutil import enable_cache
+
+    enable_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--n", type=int, default=200)
     p.add_argument("--r", type=int, default=20)

@@ -63,5 +63,8 @@ def figure(n=400, r=10, maxitrs=200, epsilon=1e-9, seed=11, save=True):
 
 
 if __name__ == "__main__":
+    from _galleryutil import enable_cache
+
+    enable_cache()
     start()
     figure()

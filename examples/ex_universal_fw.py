@@ -68,6 +68,9 @@ def start(n=400, r=1, maxitrs=200, noise_levels=(0.1, 10.0), epsilon=1e-9,
 
 
 if __name__ == "__main__":
+    from _galleryutil import enable_cache
+
+    enable_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--n", type=int, default=400)
     p.add_argument("--r", type=int, default=1)

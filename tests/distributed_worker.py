@@ -4,9 +4,9 @@ One of N processes in a LOCAL ``jax.distributed`` CPU cluster (coordinator
 on localhost): each process owns 4 virtual CPU devices, the global mesh has
 N*4, and the column-sharded D-opt solvers run SPMD with cross-process
 collectives (gloo).  This executes the real multi-process code path —
-``jax.distributed.initialize`` + cross-host collectives — that a TPU pod
-run would use over DCN (SURVEY.md §2.6; the reference has no distributed
-code at all, /root/reference/accbpg/algorithms.py is single-process).
+``jax.distributed.initialize`` + cross-host collectives — that a multi-host
+GPU run would use over the network (SURVEY.md §2.6; the reference has no
+distributed code at all, its accbpg/algorithms.py is single-process).
 
 Usage: python distributed_worker.py PORT PROCESS_ID NUM_PROCESSES
 Prints one ``RESULT {json}`` line from process 0.

@@ -1,14 +1,8 @@
-"""Driver execution-device routing: the solver_device override and the
-automatic small-f64-problem CPU fallback (VERDICT round-1 weakness: tiny
-f64-parity workloads are faster on host XLA:CPU than on the chip's
-emulated f64, so the driver routes them there by default).
-
-The conftest forces the CPU backend, so the auto path is unit-tested
-against a monkeypatched default_backend; the end-to-end drive on the real
-chip is covered by the verify/bench flows."""
+"""Driver execution-device routing: the explicit solver_device override.
+Without it a solve runs where its arrays are; nothing is routed to
+another device behind the caller's back."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -36,53 +30,70 @@ def test_override_restored_after_block():
     assert drv._DEVICE_OVERRIDE[0] is None
 
 
-class TestAutoDevice:
-    """_auto_device fires only for small, all-f64, unsharded problems when
-    the default backend is TPU."""
+# -- "auto" routes: one rule on every backend ------------------------------
 
-    def _leaves(self, dtype, n):
-        prob = {"V": jnp.zeros((4, n), dtype)}
-        carry = {"done": jnp.asarray(False), "x": jnp.zeros(n, dtype)}
-        return prob, carry
 
-    def test_fires_for_small_f64_on_tpu(self, monkeypatch):
-        if not jax.config.jax_enable_x64:
-            pytest.skip("needs x64")
-        monkeypatch.setattr(drv.jax, "default_backend", lambda: "tpu")
-        prob, carry = self._leaves(jnp.float64, 100)
-        dev = drv._auto_device(prob, carry)
-        assert dev is not None and dev.platform == "cpu"
+@pytest.fixture
+def on_gpu(monkeypatch):
+    """Make the process look like a GPU process to the routing code."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
 
-    def test_silent_on_cpu_backend(self):
-        prob, carry = self._leaves(jnp.float64, 100)
-        assert drv._auto_device(prob, carry) is None
 
-    def test_no_fire_for_f32(self, monkeypatch):
-        monkeypatch.setattr(drv.jax, "default_backend", lambda: "tpu")
-        prob, carry = self._leaves(jnp.float32, 100)
-        assert drv._auto_device(prob, carry) is None
+def _dopt(m=12, n=150, seed=4):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((m, n)), np.full(n, 1.0 / n)
 
-    def test_no_fire_above_size_limit(self, monkeypatch):
-        if not jax.config.jax_enable_x64:
-            pytest.skip("needs x64")
-        monkeypatch.setattr(drv.jax, "default_backend", lambda: "tpu")
-        n = drv.AUTO_CPU_MAX_SIZE[0] // 4 + 1
-        prob, carry = self._leaves(jnp.float64, n)
-        assert drv._auto_device(prob, carry) is None
 
-    def test_disabled_by_zero_limit(self, monkeypatch):
-        if not jax.config.jax_enable_x64:
-            pytest.skip("needs x64")
-        monkeypatch.setattr(drv.jax, "default_backend", lambda: "tpu")
-        prob, carry = self._leaves(jnp.float64, 100)
-        old = drv.AUTO_CPU_MAX_SIZE[0]
-        drv.AUTO_CPU_MAX_SIZE[0] = 0
-        try:
-            assert drv._auto_device(prob, carry) is None
-        finally:
-            drv.AUTO_CPU_MAX_SIZE[0] = old
+@pytest.mark.parametrize("away", [True, False])
+def test_auto_u_mode_is_exact_on_gpu(on_gpu, away):
+    solve = acc.D_opt_FW_away if away else acc.D_opt_FW
+    V, x0 = _dopt()
+    ra = solve(V, x0, eps=1e-6, maxitrs=400, verbose=False, chunk=128)
+    re = solve(V, x0, eps=1e-6, maxitrs=400, verbose=False, chunk=128,
+               u_mode="exact")
+    np.testing.assert_array_equal(np.asarray(ra[0]), np.asarray(re[0]))
+    np.testing.assert_array_equal(ra[1], re[1])
 
-    def test_closure_path_never_auto_routes(self, monkeypatch):
-        monkeypatch.setattr(drv.jax, "default_backend", lambda: "tpu")
-        _, carry = self._leaves(jnp.float64, 100)
-        assert drv._auto_device(None, carry) is None
+
+def test_auto_batch_precision_is_native_on_gpu(on_gpu):
+    from accbpg_and_fw_tpu.parallel.batched import dopt_fw_batch
+
+    rng = np.random.default_rng(5)
+    Vs = rng.standard_normal((2, 8, 60))
+    x0s = np.full((2, 60), 1.0 / 60)
+    ra = dopt_fw_batch(Vs, x0s, eps=1e-6, num_iters=150, precision="auto")
+    rn = dopt_fw_batch(Vs, x0s, eps=1e-6, num_iters=150, precision="native")
+    for a, b in zip(ra, rn):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_auto_regression_oracle_is_plain_on_gpu(on_gpu):
+    f, *_ = acc.Poisson_regrL1(40, 30, randseed=3, oracle="auto")
+    assert type(f) is acc.PoissonRegression
+    f, *_ = acc.KL_nonneg_regr(40, 30, randseed=3, oracle="auto")
+    assert type(f) is acc.KLdivRegression
+
+
+def test_auto_symnmf_oracle_is_plain_on_gpu(on_gpu):
+    rng = np.random.default_rng(0)
+    M = rng.random((64, 64))
+    f, *_ = acc.FrobeniusSymLossResMeasEx(0.5 * (M + M.T), 2, oracle="auto")
+    assert type(f) is acc.FrobeniusSymLoss
+
+
+@pytest.mark.parametrize("u_mode", ["pallas", "pallas_lazy", "bogus"])
+def test_unknown_u_mode_raises(u_mode):
+    V, x0 = _dopt()
+    with pytest.raises(ValueError, match="unknown u_mode"):
+        acc.D_opt_FW_away(V, x0, eps=1e-6, maxitrs=10, verbose=False,
+                          u_mode=u_mode)
+
+
+@pytest.mark.parametrize("precision", ["pallas", "pallas_lazy"])
+def test_removed_batch_precision_raises(precision):
+    from accbpg_and_fw_tpu.parallel.batched import dopt_fw_batch
+
+    Vs = np.random.default_rng(1).standard_normal((2, 4, 20))
+    with pytest.raises(ValueError, match="unknown precision"):
+        dopt_fw_batch(Vs, np.full((2, 20), 0.05), eps=1e-6, num_iters=5,
+                      precision=precision)

@@ -4,8 +4,8 @@ Spawns a 2-process local CPU cluster (coordinator on localhost, 4 virtual
 devices per process -> an 8-device global mesh) and runs the column-sharded
 D-opt solvers SPMD with real cross-process collectives, asserting parity
 with the single-process 8-virtual-device run of the SAME problems.  This is
-the testable half of the >=80%-at-2-hosts mandate: the software path a TPU
-pod would use over DCN, minus the hardware.
+the software path a multi-host GPU run would use over the network, minus
+the hardware.
 """
 
 import json

@@ -3,9 +3,9 @@
 The DS engine must deliver f64-GRADE answers from pure f32/int8 ops.  On
 the CPU test backend the EFT primitives are f64-backed (the XLA:CPU
 miscompile escape hatch, ops/double_single.py) — bit-identical primitive
-semantics to the TPU EFT path, so these trajectory comparisons are
-meaningful for both backends; the TPU path's raw-EFT accuracy is measured
-on-chip (BASELINE.md round-3 battery).
+semantics to the true-f32 EFT path, so these trajectory comparisons are
+meaningful for both backends; the GPU's true-f32 path is checked on the
+card (tests/test_chip.py, chip_smoke.py engines phase).
 """
 
 import jax

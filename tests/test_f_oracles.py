@@ -133,8 +133,8 @@ def test_calculate_tse_constant():
 
 
 def test_regression_oracle_auto_routing():
-    """oracle="auto" (round 5): explicit engines resolve; on this CPU
-    backend auto falls back to the plain oracle regardless of size."""
+    """oracle="auto" is the plain oracle on every backend; explicit
+    engines resolve."""
     import accbpg_and_fw_tpu as acc
     from accbpg_and_fw_tpu.ops.f_oracles import (KLdivRegressionDS,
                                                  PoissonRegression,
@@ -164,6 +164,6 @@ def test_symnmf_factory_ds_route():
     f, hs, L, X0 = acc.FrobeniusSymLossResMeasEx(M, 4, oracle="ds")
     assert isinstance(f, FrobeniusSymLossDS)
     assert isinstance(hs[0], acc.SumOf2nd4thPowersPositiveOrthantDS)
-    # auto on CPU -> plain
+    # auto -> plain
     f2, *_ = acc.FrobeniusSymLossResMeasEx(M, 4, oracle="auto")
     assert isinstance(f2, acc.FrobeniusSymLoss)

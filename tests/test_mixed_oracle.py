@@ -2,7 +2,7 @@
 
 The mixed oracle must agree with the true-f64 DOptimalObj to the digit
 truncation (~1e-12 relative) AND reproduce f64 driver trajectories when
-swapped in (the whole point: same convergence, no emulated-f64 matmuls).
+swapped in (the whole point: same convergence, no f64 matmuls).
 Requires x64 (conftest enables it)."""
 
 import numpy as np

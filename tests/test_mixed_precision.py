@@ -135,24 +135,19 @@ def test_dopt_ds_packed_u_certifies(monkeypatch):
 
 
 def test_auto_u_mode_routing(monkeypatch):
-    """auto routes big-f64-on-TPU to the lazy-H fused kernel (round 4);
-    everything else keeps its prior meaning (downstream mixed/exact
-    resolution)."""
+    """u_mode="auto" is the native-dtype "exact" engine on the GPU as on
+    the CPU; the int8-Ozaki "mixed" engine is only ever an explicit
+    choice."""
     from accbpg_and_fw_tpu.algorithms import d_opt
 
-    V_big = np.zeros((2, 3))  # dtype/size carriers
-    monkeypatch.setattr(d_opt, "_OZAKI_U_MIN_SIZE", 6)
-    monkeypatch.setattr(d_opt.jax, "default_backend", lambda: "tpu")
-    assert d_opt._resolve_auto_u_mode(V_big, "auto") == "pallas_lazy"
-    assert d_opt._resolve_auto_u_mode(V_big, "mixed") == "mixed"
-    assert d_opt._resolve_auto_u_mode(V_big, "exact") == "exact"
-    assert d_opt._resolve_auto_u_mode(
-        V_big.astype(np.float32), "auto") == "auto"
-    monkeypatch.setattr(d_opt, "_OZAKI_U_MIN_SIZE", 7)
-    assert d_opt._resolve_auto_u_mode(V_big, "auto") == "auto"
-    monkeypatch.setattr(d_opt.jax, "default_backend", lambda: "cpu")
-    monkeypatch.setattr(d_opt, "_OZAKI_U_MIN_SIZE", 6)
-    assert d_opt._resolve_auto_u_mode(V_big, "auto") == "auto"
+    monkeypatch.setattr(d_opt.jax, "default_backend", lambda: "gpu")
+    V = jnp.asarray(np.random.RandomState(1).randn(4, 9))
+    prob, cfg = d_opt._dopt_problem(V, 1e-8, "auto")
+    assert not cfg.mixed and "V_digits" not in prob
+    prob, cfg = d_opt._dopt_problem(V, 1e-8, "exact")
+    assert not cfg.mixed and "V_digits" not in prob
+    prob, cfg = d_opt._dopt_problem(V, 1e-8, "mixed")
+    assert cfg.mixed and "V_digits" in prob
 
 
 def test_dopt_ds_f_history_full_resolution(monkeypatch):

@@ -25,10 +25,10 @@ def mesh():
 
 
 class TestBatchedDSCertification:
-    """Round-2 verdict item 4: the DS batch engine must fresh-certify
-    1e-8 at small m (the old K>=2 vmapped limit cycle is root-caused to
-    broadcast-EFT rewriting, fixed by double_single._bc2; on-chip 16/16
-    certification is recorded in BASELINE.md — this is the CPU gate)."""
+    """The DS batch engine must fresh-certify 1e-8 at small m (the old
+    K>=2 vmapped limit cycle is root-caused to broadcast-EFT rewriting,
+    fixed by double_single._bc2; on an H100 the K=32 sweep of 30x1000
+    certifies in chip_smoke.py — this is the CPU gate)."""
 
     @pytest.mark.parametrize("m", [12, 30])
     def test_small_m_certifies_1e8(self, m):
